@@ -1,7 +1,7 @@
 """Multi-sub-receiver demo: one wideband front end, K independently
 tuned sub-receivers demodulated in a single vmapped kernel set.
 
-This is the TPU-native form of the reference's MIX1_NO_OF_CHANNELS=24
+This is the batched form of the reference's MIX1_NO_OF_CHANNELS=24
 mix1 channel slots and of its network "userx" consumers (a master
 multicasting the wideband pipeline to narrowband slaves,
 globdef.h:315/1282-1294, z_NETWORK.txt) — instead of fanning stages out
@@ -10,7 +10,6 @@ over UDP to separate machines, the sub-receivers are a batch axis.
     python examples/demo_multirx.py
 """
 
-import os
 import sys
 import time
 
@@ -18,16 +17,14 @@ import numpy as np
 
 sys.path.insert(0, ".")
 
-if os.environ.get("JAX_PLATFORMS") == "cpu":
-    import jax
-    jax.config.update("jax_platforms", "cpu")
-
 from linrad_tpu import Demod, RxParams  # noqa: E402
 from linrad_tpu.io.siggen import Tone, gaussian_noise, tones_iq  # noqa: E402
 from linrad_tpu.pipeline import MultiReceiver  # noqa: E402
+from linrad_tpu.utils.compile_cache import enable_compile_cache  # noqa: E402,E501
 
 
 def main():
+    enable_compile_cache()
     p = RxParams(first_fft_bandwidth=100.0,
                  mix1_bandwidth_reduction_n=4, demod=Demod.SSB,
                  bfo_hz=800.0)

@@ -21,9 +21,11 @@ from linrad_tpu.modes import powtim, txtest                # noqa: E402
 from linrad_tpu.tx import (ascii_keying, cw_envelope,      # noqa: E402
                            radar_pulse_train, ssb_modulate)
 from linrad_tpu.tx.ssbproc import SSBProcessor             # noqa: E402
+from linrad_tpu.utils.compile_cache import enable_compile_cache  # noqa: E402,E501
 
 
-def main(out_dir: str = "/tmp/linrad_tpu_demo_tx"):
+def main(out_dir: str = "demo_tx_out"):
+    enable_compile_cache()
     os.makedirs(out_dir, exist_ok=True)
     fs = 8000.0
 

@@ -8,17 +8,13 @@
 4. fft2/fft3 + mix1/mix2 + SSB demod to audio
 5. weak-signal CW chain (AFC + coherent + Morse decode)
 
-CPU-runnable (forces JAX_PLATFORMS=cpu unless RUN_ON_TPU=1).
+Runs on JAX's default device; JAX_PLATFORMS=cpu runs it on the CPU.
 """
 
-import os
 import sys
 import time
 
-if not os.environ.get("RUN_ON_TPU"):
-    import jax
-    jax.config.update("jax_platforms", "cpu")
-
+import jax
 import numpy as np
 
 sys.path.insert(0, ".")
@@ -29,6 +25,7 @@ from linrad_tpu.calibration import (apply_iq_correction,  # noqa: E402
 from linrad_tpu.io.siggen import (Tone, gaussian_noise,  # noqa: E402
                                   impulse_noise, tones_iq)
 from linrad_tpu.pipeline import Receiver  # noqa: E402
+from linrad_tpu.utils.compile_cache import enable_compile_cache  # noqa: E402,E501
 from linrad_tpu.weak.cw import decode_morse, keyed_cw  # noqa: E402
 
 LINES = []
@@ -152,6 +149,7 @@ def config5():
 
 
 def main(out_path=None):
+    enable_compile_cache()
     t0 = time.time()
     log("# BASELINE config parity report")
     log()
@@ -163,7 +161,7 @@ def main(out_path=None):
     config5()
     log()
     log(f"_generated in {time.time() - t0:.0f}s on "
-        f"{'TPU' if os.environ.get('RUN_ON_TPU') else 'CPU'}_")
+        f"{jax.devices()[0].device_kind}_")
     if out_path:
         with open(out_path, "w") as f:
             f.write("\n".join(LINES) + "\n")

@@ -23,10 +23,12 @@ from linrad_tpu.io.httpd import WebGui
 from linrad_tpu.io.siggen import Tone, tones_iq
 from linrad_tpu.pipeline import Receiver
 from linrad_tpu.runtime.watchdog import RealTimeMonitor, Watchdog
+from linrad_tpu.utils.compile_cache import enable_compile_cache
 from linrad_tpu.viz import SMeterLogger
 
 
 def main(port: int = 8765, wav: str | None = None) -> None:
+    enable_compile_cache()
     p = RxParams(first_fft_bandwidth=30.0, mix1_bandwidth_reduction_n=4,
                  afc_enable=True, filter_low_hz=-250.0,
                  filter_high_hz=250.0)

@@ -1,4 +1,4 @@
-"""linrad_tpu — a TPU-native software-defined-radio DSP framework.
+"""linrad_tpu — a JAX software-defined-radio DSP framework.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of Linrad
 (SM5BSZ's weak-signal SDR receiver, reference at /root/reference): the
@@ -8,7 +8,7 @@ and decimation to baseband, the third FFT with user filter, AGC and
 SSB/CW/AM/FM/coherent demodulation, and the weak-signal layer (AFC, spur
 cancellation, coherent CW/Morse decoding, dual polarization) — expressed
 as a single jitted block-pipeline over streaming IQ blocks, sharded over
-a TPU mesh.
+a device mesh.
 """
 
 from .geometry import Geometry, derive_geometry, interleave_ratio

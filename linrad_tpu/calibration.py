@@ -1,6 +1,6 @@
 """Calibration: amplitude/phase response correction and I/Q balance.
 
-TPU-native re-design of the reference calibration subsystem
+JAX re-design of the reference calibration subsystem
 (calibrate.c / caliq.c / calsub.c; procedure notes z_CALIBRATE.txt):
 
 1. **Amplitude+phase calibration** (``cal_filtercorr`` calibrate.c:376,

@@ -1,6 +1,6 @@
 """Pipeline geometry derivation.
 
-TPU-native analog of ``get_wideband_sizes`` / ``fft1_block_timing`` /
+JAX analog of ``get_wideband_sizes`` / ``fft1_block_timing`` /
 ``make_interleave_ratio`` (reference buf.c:43-560).  All sizes are static
 Python ints computed once per configuration, so every jitted kernel sees
 fully static shapes.

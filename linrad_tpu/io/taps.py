@@ -1,6 +1,6 @@
 """Stage-boundary streaming taps — distributed operation.
 
-TPU-native equivalent of Linrad's network layer (reference network.c,
+JAX equivalent of Linrad's network layer (reference network.c,
 z_NETWORK.txt, SURVEY.md §2.6): a master exports any tap point of the
 pipeline — RAW16/RAW18/RAW24 (input), FFT1, TIMF2, FFT2, BASEB,
 BASEBRAW — over UDP multicast; slaves ingest a tap as *their* input, so
@@ -12,7 +12,7 @@ block_no, userx_no, passband_direction) + a fixed payload.  Block
 numbers let receivers detect gaps and resynchronise (the loss tolerance
 of thread_rx_raw_netinput, network.c:810).
 
-Between TPU hosts the heavy intra-step traffic rides ICI collectives
+Between devices the heavy intra-step traffic rides collectives
 (parallel/sharded.py); these taps are the *inter-pipeline* hand-off —
 e.g. one pipeline's blanked TIMF2 feeding another's fft2-only analysis,
 or fan-out of one antenna stream to many independent receivers.

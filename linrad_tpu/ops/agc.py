@@ -1,6 +1,6 @@
 """AGC — peak tracking with attack / release / hang.
 
-TPU-native form of the reference AGC (mix2.c:1517-1620; factor
+JAX form of the reference AGC (mix2.c:1517-1620; factor
 derivation baseb_graph.c:435-437).  The release recurrence
 ``env[t] = max(|x[t]|, r * env[t-1])`` is a max-plus associative scan
 (utils/scanops.decay_max); hang is a causal sliding-window max before the

@@ -1,7 +1,7 @@
 """Noise blankers — the "smart" fit-and-subtract and "stupid" clear
 blankers on the weak timf2 channel.
 
-TPU-native ``first_noise_blanker`` (reference blank1.c:684-1603):
+JAX ``first_noise_blanker`` (reference blank1.c:684-1603):
 
 Clever blanker (``subtract_onechan_pulse`` blank1.c:36-232): find the
 strongest candidate above threshold, derotate a window around it by the
@@ -457,7 +457,7 @@ def stupid_blanker(weak: jax.Array, pwr: jax.Array,
 def despiked_mean(pwr: jax.Array) -> jax.Array:
     """Mean power excluding pulse outliers: two O(n) passes (mean, then
     mean of samples below 4x mean) instead of a quantile sort — a sort
-    of the whole step is the single most expensive op on TPU and the
+    of the whole step is far more expensive than two passes, and the
     threshold only steers a 1-s EMA (buf.c:336-346 semantics)."""
     m0 = jnp.mean(pwr)
     keep = pwr <= 4.0 * m0

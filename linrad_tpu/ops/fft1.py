@@ -1,13 +1,13 @@
 """First FFT — the wideband analysis stage.
 
-TPU-native equivalent of ``fft1_b`` (windowed overlapped forward transform
+JAX equivalent of ``fft1_b`` (windowed overlapped forward transform
 of raw A/D blocks, reference fft1.c:3302-4084) and ``fft1_c`` (calibration
 multiply + power-spectrum accumulation, reference fft1.c:4085-4350).
 
 Linrad runs 1-6 worker threads each transforming a different input block
 (thrdef.h:88-93, wcw.c:974-1032); here the same block-level data
 parallelism is a batch axis: one jitted call transforms all frames of the
-step at once, which XLA tiles over the MXU/VPU.
+step at once.
 """
 
 from __future__ import annotations
@@ -18,7 +18,6 @@ import numpy as np
 
 from ..geometry import Geometry
 from ..utils.pytree import pytree_dataclass
-from . import fft as fftlib
 from .framing import frame_stream
 from .windows import make_window
 
@@ -112,7 +111,6 @@ class FFT1State:
 
 def fft1_step(geo: Geometry, tables: FFT1Tables, state: FFT1State,
               block: jax.Array, avg1num: int,
-              variant: str | None = None,
               axis_name: str | None = None
               ) -> tuple[FFT1State, jax.Array, jax.Array]:
     """Transform one step's worth of input.
@@ -134,26 +132,11 @@ def fft1_step(geo: Geometry, tables: FFT1Tables, state: FFT1State,
     replicated-consistent; the caller owns the cross-shard framing tail
     exchange (parallel/sharded.py).
     """
-    if geo.iq_input and variant == "pallas" and tables.iq_corr is None \
-            and axis_name is None:
-        # fully fused Pallas kernel: window + DFT + calibration + power
-        # (fft1_b + fft1_c in one VMEM-resident pass, ops/pallas_fft.py)
-        from .pallas_fft import fused_fft1
-        frames, new_tail = frame_stream(state.tail, block, geo.fft1_size,
-                                        geo.fft1_new_points)
-        spec, psum = fused_fft1(frames, tables.window, tables.filtercorr)
-        step_power = psum / geo.fft1_frames_per_step
-        alpha = min(1.0, geo.fft1_frames_per_step / max(avg1num, 1))
-        sumsq = state.sumsq_avg * (1.0 - alpha) + step_power * alpha
-        return (FFT1State(tail=new_tail, sumsq_avg=sumsq), spec,
-                step_power)
-    if variant == "pallas":  # real mode / iq_corr: no fused path
-        variant = None
     if geo.iq_input:
         frames, new_tail = frame_stream(state.tail, block, geo.fft1_size,
                                         geo.fft1_new_points)
         windowed = frames * tables.window[None, :, None]
-        spec = fftlib.fft(windowed, axis=1, variant=variant)
+        spec = jnp.fft.fft(windowed, axis=1)
     else:
         # real mode: 2N real samples -> N-bin one-sided spectrum
         # (block is (2*samples_per_step, C) float32)
@@ -183,8 +166,7 @@ def fft1_step(geo: Geometry, tables: FFT1Tables, state: FFT1State,
 
 
 def fft1_real_step(geo: Geometry, window2n: jax.Array, tail: jax.Array,
-                   block: jax.Array, variant: str | None = None
-                   ) -> tuple[jax.Array, jax.Array]:
+                   block: jax.Array) -> tuple[jax.Array, jax.Array]:
     """Real-input variant: 2N real samples -> N-bin one-sided spectrum.
 
     The reference folds real input into a half-size complex transform with

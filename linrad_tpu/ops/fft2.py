@@ -1,10 +1,10 @@
 """Second FFT — high-resolution spectrum after blanking.
 
-TPU-native ``make_fft2`` (reference fft2.c:52-1848).  The reference
+JAX ``make_fft2`` (reference fft2.c:52-1848).  The reference
 re-sums weak+strong per point with the sin^N window fused
 (fft2.c:100-116) and runs an incremental state machine
 (FFT2_B/C/... globdef.h:330-338) so a CPU thread does bounded work per
-call; on TPU the chunking serves no purpose (SURVEY.md §7) — the step is
+call; here the chunking serves no purpose (SURVEY.md §7) — the step is
 one batched windowed FFT over all frames of the step.
 """
 
@@ -16,7 +16,6 @@ import numpy as np
 
 from ..geometry import Geometry
 from ..utils.pytree import pytree_dataclass
-from . import fft as fftlib
 from .cplx import czeros
 from .framing import frame_stream
 from .windows import make_window
@@ -47,8 +46,7 @@ class FFT2State:
 
 
 def fft2_transform(geo: Geometry, tables: FFT2Tables, tail: jax.Array,
-                   weak: jax.Array, strong: jax.Array,
-                   variant: str | None = None
+                   weak: jax.Array, strong: jax.Array
                    ) -> tuple[jax.Array, jax.Array]:
     """Re-sum weak+strong (fft2.c:100-116) and transform.
 
@@ -57,8 +55,7 @@ def fft2_transform(geo: Geometry, tables: FFT2Tables, tail: jax.Array,
     timf2 = weak + strong
     frames, new_tail = frame_stream(tail, timf2, geo.fft2_size,
                                     geo.fft2_new_points)
-    spec = fftlib.fft(frames * tables.window[None, :, None], axis=1,
-                      variant=variant)
+    spec = jnp.fft.fft(frames * tables.window[None, :, None], axis=1)
     return new_tail, spec
 
 
@@ -76,14 +73,13 @@ def fft2_power_update(geo: Geometry, state: FFT2State, new_tail,
 
 
 def fft2_step(geo: Geometry, tables: FFT2Tables, state: FFT2State,
-              weak: jax.Array, strong: jax.Array, avg2num: int = 8,
-              variant: str | None = None
+              weak: jax.Array, strong: jax.Array, avg2num: int = 8
               ) -> tuple[FFT2State, jax.Array, jax.Array]:
     """fft2_transform + fft2_power_update in one call (no spur stage).
 
     Returns (state, spectra (n2, fft2_size, C), step_power)."""
     new_tail, spec = fft2_transform(geo, tables, state.tail, weak,
-                                    strong, variant=variant)
+                                    strong)
     new_state, step_power = fft2_power_update(geo, state, new_tail,
                                               spec, avg2num)
     return new_state, spec, step_power

@@ -1,6 +1,6 @@
 """Third FFT — baseband spectrum for filtering and display.
 
-TPU-native ``do_fft3``/``make_fft3_all`` (reference fft3.c:35/215): the
+JAX ``do_fft3``/``make_fft3_all`` (reference fft3.c:35/215): the
 timf3 baseband stream is framed with a sin^N window at the baseband
 overlap and forward transformed; the transforms feed mix2 (filtering +
 demod) and the baseband spectrum/waterfall taps.  Squelch statistics
@@ -16,7 +16,6 @@ import numpy as np
 
 from ..geometry import Geometry
 from ..utils.pytree import pytree_dataclass
-from . import fft as fftlib
 from .framing import frame_stream
 from .windows import make_window
 
@@ -43,11 +42,9 @@ class FFT3State:
 
 
 def fft3_step(geo: Geometry, tables: FFT3Tables, state: FFT3State,
-              timf3: jax.Array, variant: str | None = None
-              ) -> tuple[FFT3State, jax.Array]:
+              timf3: jax.Array) -> tuple[FFT3State, jax.Array]:
     """timf3 (S3, C) -> fft3 spectra (n3, fft3_size, C)."""
     frames, new_tail = frame_stream(state.tail, timf3, geo.fft3_size,
                                     geo.fft3_new_points)
-    spec = fftlib.fft(frames * tables.window[None, :, None], axis=1,
-                      variant=variant)
+    spec = jnp.fft.fft(frames * tables.window[None, :, None], axis=1)
     return FFT3State(tail=new_tail), spec

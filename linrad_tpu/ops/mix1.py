@@ -1,6 +1,6 @@
 """First mixer / decimator — frequency-domain downconversion.
 
-TPU-native ``do_mix1`` (reference mix1.c:55-647): instead of a time-domain
+JAX ``do_mix1`` (reference mix1.c:55-647): instead of a time-domain
 NCO multiply, a group of ``mix1.size`` bins around the tuned bin is taken
 from each fftx transform (fft1 or fft2 stream), weighted by the
 frequency-domain window ``mix1_fqwin`` (sin^4 taper built by
@@ -26,7 +26,6 @@ import numpy as np
 
 from ..geometry import Geometry
 from ..utils.pytree import pytree_dataclass
-from . import fft as fftlib
 from .cplx import czeros
 from .framing import overlap_add
 from .windows import synthesis_weights
@@ -82,7 +81,6 @@ class Mix1State:
 
 def mix1_step(geo: Geometry, tables: Mix1Tables, state: Mix1State,
               spectra: jax.Array, center_bins: jax.Array,
-              variant: str | None = None,
               tune_frac: jax.Array | None = None,
               tune_slope: jax.Array | None = None
               ) -> tuple[Mix1State, jax.Array]:
@@ -130,7 +128,7 @@ def mix1_step(geo: Geometry, tables: Mix1Tables, state: Mix1State,
     sel = ctake_along_axis(spectra, bins[:, :, None], axis=1)  # (n,M,C)
     sel = sel * tables.fqwin[None, :, None]
 
-    y = fftlib.ifft(sel, axis=1, variant=variant) * (m / big_n)
+    y = jnp.fft.ifft(sel, axis=1) * (m / big_n)
 
     # Integer phase bookkeeping: frame b needs exp(-2*pi*i*phi_b/N) with
     # phi advancing by c_b*H (mod N) per frame.  N is a power of two, so

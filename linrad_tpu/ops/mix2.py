@@ -1,6 +1,6 @@
 """Second mixer: baseband filter + inverse transform to demod input.
 
-TPU-native ``do_mix2``/``fft3_mix2`` (reference mix2.c:41-2070,
+JAX ``do_mix2``/``fft3_mix2`` (reference mix2.c:41-2070,
 mixer_mode 1 frequency-domain path mix2.c:146-216): ``mix2.size`` bins of
 each fft3 transform centred at DC are multiplied by the user filter
 ``bg_filterfunc``, inverse transformed, and overlap-added to the
@@ -21,7 +21,6 @@ import numpy as np
 from ..geometry import Geometry
 from ..utils.pytree import pytree_dataclass
 from ..params import RxParams
-from . import fft as fftlib
 from .framing import overlap_add
 from .windows import synthesis_weights
 
@@ -168,7 +167,7 @@ class Mix2State:
                                             jnp.complex64))
 
 
-def _branch(geo: Geometry, spectra, filt, syn, carry, variant):
+def _branch(geo: Geometry, spectra, filt, syn, carry):
     m2 = geo.mix2_size
     n3 = geo.fft3_size
     rel = jnp.where(jnp.arange(m2) < m2 // 2, jnp.arange(m2),
@@ -177,14 +176,13 @@ def _branch(geo: Geometry, spectra, filt, syn, carry, variant):
     from .cplx import cgather
     sel = cgather(spectra, (slice(None), bins, slice(None))) \
         * filt[None, :, None]
-    y = fftlib.ifft(sel, axis=1, variant=variant) * (m2 / n3)
+    y = jnp.fft.ifft(sel, axis=1) * (m2 / n3)
     frames = y * syn[None, :, None]
     return overlap_add(frames, geo.mix2_new_points, carry)
 
 
 def mix2_step(geo: Geometry, tables: Mix2Tables, state: Mix2State,
-              spectra: jax.Array, with_carrier: bool = False,
-              variant: str | None = None
+              spectra: jax.Array, with_carrier: bool = False
               ) -> tuple[Mix2State, jax.Array, jax.Array | None]:
     """fft3 spectra (n3, fft3_size, C) -> filtered baseband stream.
 
@@ -193,25 +191,24 @@ def mix2_step(geo: Geometry, tables: Mix2Tables, state: Mix2State,
     carrier is the narrow carrier-filter branch (or None).
     """
     baseb, carry = _branch(geo, spectra, tables.filt, tables.syn,
-                           state.ola_carry, variant)
+                           state.ola_carry)
     carrier = None
     carr_carry = state.carr_ola_carry
     if with_carrier:
         carrier, carr_carry = _branch(geo, spectra, tables.carr_filt,
-                                      tables.syn, state.carr_ola_carry,
-                                      variant)
+                                      tables.syn, state.carr_ola_carry)
     return (Mix2State(ola_carry=carry, carr_ola_carry=carr_carry),
             baseb, carrier)
 
 
 def mix2_carrier_step(geo: Geometry, tables: Mix2Tables, state: Mix2State,
-                      spectra: jax.Array, variant: str | None = None
+                      spectra: jax.Array
                       ) -> tuple[Mix2State, jax.Array]:
     """Carrier branch only (used with the mixer_mode-2 main path — the
     reference builds carr_tmp from fft3 in both mixer modes,
     mix2.c:246-262)."""
     carrier, carr_carry = _branch(geo, spectra, tables.carr_filt,
-                                  tables.syn, state.carr_ola_carry, variant)
+                                  tables.syn, state.carr_ola_carry)
     return (Mix2State(ola_carry=state.ola_carry,
                       carr_ola_carry=carr_carry), carrier)
 
@@ -235,8 +232,8 @@ def mix2_fir_step(geo: Geometry, fir: jax.Array, state: Mix2FirState,
     ``m * resamp`` against the taps; the stride ``resamp =
     fft3_size / mix2_size`` resamples timf3 to the baseband rate
     exactly as the frequency-domain path does.  The windowed gather +
-    matvec form keeps shapes static and feeds the MXU as one
-    (M, K) @ (K,) contraction per step.
+    matvec form keeps shapes static: one (M, K) @ (K,) contraction
+    per step.
     """
     k = fir.shape[0]
     resamp = geo.fft3_size // geo.mix2_size
@@ -244,6 +241,7 @@ def mix2_fir_step(geo: Geometry, fir: jax.Array, state: Mix2FirState,
     m = timf3.shape[0] // resamp
     idx = np.arange(m)[:, None] * resamp + np.arange(k)[None, :]
     from .cplx import cgather
-    baseb = jnp.einsum("mkc,k->mc", cgather(xs, idx), fir)
+    baseb = jnp.einsum("mkc,k->mc", cgather(xs, idx), fir,
+                       precision=jax.lax.Precision.HIGHEST)
     return (Mix2FirState(carry=xs[xs.shape[0] - (k - 1):]),
             baseb.astype(jnp.complex64))

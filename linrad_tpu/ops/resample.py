@@ -1,6 +1,6 @@
 """Audio-rate conversion — the rx_output resampler.
 
-TPU-native form of the reference's D/A-rate sync resampler
+JAX form of the reference's D/A-rate sync resampler
 (``rx_output`` reference rxout.c:266, 4-point interpolation with
 precomputed weights rxout.c:1111-1148).  The reference continuously
 re-measures true A/D and D/A clock rates and slews ``da_resample_ratio``;
@@ -19,7 +19,7 @@ reference follows its 4-point interpolator with an anti-image IIR
 chain rxout.c:1165-1210) because cubic interpolation leaves images only
 ~20 dB down for tones above ~0.25·fs_in; a 32-tap Blackman-Harris sinc
 does the interpolation and the anti-image filtering in the same
-gather-einsum (>70 dB rejection), which is the TPU-native shape — one
+gather-einsum (>70 dB rejection), which is the data-parallel shape — one
 static (S_out, taps) x (taps,) contraction instead of a sequential IIR.
 """
 
@@ -125,6 +125,7 @@ class Resampler:
             w = self._w.astype(x.dtype)
         else:
             w = self._w
-        out = jnp.einsum("stc,st->sc", taps, w)
+        out = jnp.einsum("stc,st->sc", taps, w,
+                         precision=jax.lax.Precision.HIGHEST)
         return (ResamplerState(history=buf[-(self.taps - 1):]),
                 out.astype(x.dtype))

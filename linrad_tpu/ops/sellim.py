@@ -1,6 +1,6 @@
 """Selective limiter — per-bin weak/strong classification (liminfo).
 
-TPU-native ``fft1_update_liminfo`` (reference sellim.c:738-1157).  The
+JAX ``fft1_update_liminfo`` (reference sellim.c:738-1157).  The
 liminfo contract (sellim.c:757-763):
 
     liminfo[i]  < 0  => bin to strong channel at unit gain
@@ -70,6 +70,22 @@ class SellimState:
     def create(cls, geo: Geometry) -> "SellimState":
         return cls(liminfo=jnp.zeros((geo.fft1_size,), jnp.float32),
                    liminfo_wait=jnp.zeros((geo.fft1_size,), jnp.int32))
+
+
+def smallest_k(x: jax.Array, k: int) -> jax.Array:
+    """The ``k`` smallest entries of each row of ``x`` (…, m), ascending —
+    the values of ``-lax.top_k(-x, k)[0]``, ties counted separately.
+
+    Built from argmin passes instead of ``top_k``: XLA's GPU compiler
+    fails to compile a batched top_k (its topk decomposer builds a
+    comparator of the wrong arity), and the fleet path vmaps this."""
+    idx = jnp.arange(x.shape[-1])
+    out = []
+    for _ in range(k):
+        i = jnp.argmin(x, axis=-1, keepdims=True)
+        out.append(jnp.take_along_axis(x, i, axis=-1)[..., 0])
+        x = jnp.where(idx == i, jnp.inf, x)
+    return jnp.stack(out, axis=-1)
 
 
 def sellim_limit(geo: Geometry, maxlevel: float) -> float:
@@ -152,7 +168,7 @@ def update_liminfo(geo: Geometry, state: SellimState, avg_power: jax.Array,
 
     # 5. noise floor: groups -> mean of 3 smallest (sellim.c:891-917)
     gp = p.reshape(groups, n // groups)
-    small3 = -jax.lax.top_k(-gp, 3)[0]          # (groups, 3)
+    small3 = smallest_k(gp, 3)                  # (groups, 3)
     gmin = jnp.mean(small3, axis=1)
     gavg = jnp.mean(gmin)
     sel = gmin < 2.0 * gavg

@@ -1,6 +1,6 @@
 """Squelch and audio expander.
 
-Squelch: TPU-native ``update_squelch`` (reference fft3.c:87-145) — the
+Squelch: JAX ``update_squelch`` (reference fft3.c:87-145) — the
 in-passband fft3 spectral statistics decide signal vs noise: the noise
 level comes from the smallest 20% of the in-band slow spectrum; the gate
 opens when in-band power exceeds ``ratio`` times that floor, with a

@@ -1,6 +1,6 @@
 """Back transform & weak/strong split -> the timf2 time series.
 
-TPU-native ``make_timf2`` (reference timf2.c:31-208): each fft1 spectrum
+JAX ``make_timf2`` (reference timf2.c:31-208): each fft1 spectrum
 is split by liminfo into a weak and a strong spectrum, both are inverse
 transformed, and the overlapped inverse transforms are combined into two
 continuous time series (``fft1back_one/two`` + ``fft1back_fp_finish``
@@ -22,7 +22,6 @@ import jax.numpy as jnp
 
 from ..geometry import Geometry
 from ..utils.pytree import pytree_dataclass
-from . import fft as fftlib
 from .framing import overlap_add
 from .windows import synthesis_weights
 
@@ -51,7 +50,7 @@ def make_timf2_syn(geo: Geometry) -> jax.Array:
 
 def timf2_step(geo: Geometry, syn: jax.Array, state: Timf2State,
                fft1_spec: jax.Array, weak_gain: jax.Array,
-               strong_gain: jax.Array, variant: str | None = None
+               strong_gain: jax.Array
                ) -> tuple[Timf2State, jax.Array, jax.Array, jax.Array]:
     """Split + back transform one step of fft1 spectra.
 
@@ -66,7 +65,7 @@ def timf2_step(geo: Geometry, syn: jax.Array, state: Timf2State,
     # stack weak/strong on a leading axis -> one batched iFFT
     gains = jnp.stack([weak_gain, strong_gain])            # (2, N)
     masked = fft1_spec[None] * gains[:, None, :, None]     # (2, n, N, C)
-    back = fftlib.ifft(masked, axis=2, variant=variant)
+    back = jnp.fft.ifft(masked, axis=2)
     frames = back * syn[None, None, :, None]
     weak, wc = overlap_add(frames[0], geo.fft1_new_points,
                            state.weak_carry)

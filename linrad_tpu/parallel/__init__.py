@@ -2,10 +2,10 @@
 UDP-multicast distributed operation (reference network.c, SURVEY.md §2.6).
 
 Where Linrad splits the pipeline across machines at stage boundaries via
-multicast taps, the TPU framework shards the *time-block batch* of every
+multicast taps, this framework shards the *time-block batch* of every
 stage across a ``jax.sharding.Mesh`` and exchanges the overlap-save
 halos and overlap-add carries between neighbouring shards with
-``lax.ppermute`` over ICI (SURVEY.md §7 sharding design)."""
+``lax.ppermute`` collectives (SURVEY.md §7 sharding design)."""
 
 from .fleet import FleetRunner
 from .multihost import global_time_mesh, host_rows, scatter_step_block

@@ -3,8 +3,8 @@
 The reference scales over *one* signal by splitting its pipeline across
 machines (z_NETWORK.txt master/slave); the other production axis —
 many independent channels/recordings at once (N dial frequencies, N
-antennas, N capture files) — is N Linrad instances on N machines.  On
-TPU that axis is a pure ``vmap``: the whole rx_step is vectorized over a
+antennas, N capture files) — is N Linrad instances on N machines.  Here
+that axis is a pure ``vmap``: the whole rx_step is vectorized over a
 leading stream axis and that axis is sharded across the device mesh, so
 each chip runs a fleet of receivers in lockstep with zero cross-chip
 communication (embarrassingly data-parallel, the ideal mesh workload).

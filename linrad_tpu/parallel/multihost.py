@@ -1,9 +1,10 @@
 """Multi-host ingest: one host reads the recording, every host computes.
 
 The reference's multi-machine story is UDP multicast of stage payloads
-(network.c, z_NETWORK.txt); the TPU-native equivalent for a pod slice is
+(network.c, z_NETWORK.txt); the JAX equivalent across hosts is
 host-0 file ingest + a global sharded array per step, with XLA moving
-the shards host-to-host over DCN and chip-to-chip over ICI
+the shards host-to-host over the network and device-to-device over
+the host's interconnect
 (SURVEY.md §7: "host 0 reads file, make_array_from_process_local_data
 scatter").
 
@@ -31,8 +32,8 @@ AXIS = "t"
 
 
 def global_time_mesh(devices=None) -> Mesh:
-    """A 1-D mesh over every device of every host (ICI within a host's
-    slice, DCN between hosts — XLA picks the transport per edge)."""
+    """A 1-D mesh over every device of every host (XLA picks the
+    transport per edge)."""
     if devices is None:
         devices = jax.devices()          # global across processes
     return Mesh(np.array(devices), (AXIS,))

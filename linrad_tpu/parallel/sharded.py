@@ -4,7 +4,7 @@ The wideband hot path (fft1 -> sellim split -> back-FFT -> blankers ->
 fft2 -> mix1), which carries >95% of the FLOPs, is sharded along the
 time axis: device d processes the d-th contiguous slice of each step's
 samples.  Three kinds of cross-shard dependency exist, all nearest-
-neighbour and all carried over ICI with ``lax.ppermute``:
+neighbour and all carried with ``lax.ppermute``:
 
 1. **Framing halos**: overlapped analysis frames need the previous
    shard's tail samples (the fft1/fft2/fft3 interleave, the analog of
@@ -122,7 +122,7 @@ def _make_sharded_front(geo: Geometry, p: RxParams, d: int,
         s1, spec, step_power = fft1_step(
             geo, tables.fft1,
             FFT1State(tail=tail, sumsq_avg=state.fft1.sumsq_avg),
-            block, p.fft_avg1num, variant=None, axis_name=AXIS)
+            block, p.fft_avg1num, axis_name=AXIS)
         s_fft1 = FFT1State(tail=new_tail, sumsq_avg=s1.sumsq_avg)
         sumsq = s1.sumsq_avg
 
@@ -146,10 +146,9 @@ def _make_sharded_front(geo: Geometry, p: RxParams, d: int,
                 sel_hi=sel_c + bw_bins)
             wgain, sgain = sellim_ops.liminfo_gains(s_sellim.liminfo)
             # back transform local frames; OLA with carry chain
-            from ..ops import fft as fftlib
             gains = jnp.stack([wgain, sgain])
             masked = spec[None] * gains[:, None, :, None]
-            back = fftlib.ifft(masked, axis=2)
+            back = jnp.fft.ifft(masked, axis=2)
             bframes = back * tables.timf2_syn[None, None, :, None]
             weak, wc = _shard_ola(bframes[0], geo.fft1_new_points,
                                   state.timf2.weak_carry)
@@ -174,7 +173,7 @@ def _make_sharded_front(geo: Geometry, p: RxParams, d: int,
                 # one fit-window of neighbour samples so boundary pulses
                 # are fitted whole; candidate *centres* stay shard-owned
                 # (eligible mask), and the corrections a fit writes into
-                # neighbour territory are shipped back over ICI and
+                # neighbour territory are shipped back and
                 # applied (subtractions are linear, so they compose)
                 halo = tables.blanker.refbank.shape[1]
                 ext_w = jnp.concatenate(
@@ -229,12 +228,12 @@ def _make_sharded_front(geo: Geometry, p: RxParams, d: int,
             tail2, new_tail2 = _shard_tail(state.fft2.tail, timf2)
             f2, _ = frame_stream(tail2, timf2, geo.fft2_size,
                                  geo.fft2_new_points)
-            fftx_spec = fftlib.fft(
+            fftx_spec = jnp.fft.fft(
                 f2 * tables.fft2.window[None, :, None], axis=1)
             # spur cancellation BEFORE the power spectrum, as the
             # single-chip chain / reference (fft2.c:648-670); replicated
             # over gathered spectra (the per-frame model recurrence
-            # chains across shard boundaries; spectra small, ~1 MB ICI)
+            # chains across shard boundaries; spectra small, ~1 MB)
             s_spur = state.spur
             if p.spur_enable:
                 from ..weak.spur import spur_subtract_step
@@ -685,7 +684,7 @@ class ShardedBatchRunner:
 
     The lax.scan of pipeline/batch.py wrapped around the shard_map step —
     the device mesh processes K * samples_per_step samples per dispatch
-    with the cross-shard halos/carries riding ICI inside the scan and no
+    with the cross-shard halos/carries on collectives inside the scan and no
     host round-trips in between.  State chains through the scan exactly
     as across streamed ShardedReceiver steps (tested)."""
 

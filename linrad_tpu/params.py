@@ -1,6 +1,6 @@
 """User-facing receiver parameters.
 
-TPU-native analog of Linrad's two parameter tiers: the global ``ui``
+JAX analog of Linrad's two parameter tiers: the global ``ui``
 struct (USERINT_PARM, reference globdef.h:459-516) and the per-mode
 ``genparm`` DSP parameters (reference globdef.h:288-326, uivar.c:393-427).
 Only the parameters that affect DSP semantics survive here; screen/device
@@ -138,12 +138,8 @@ class RxParams:
     # --- spectrum averaging ---
     fft_avg1num: int = 8               # fft1 power spectrum averaging count
 
-    # --- batching (TPU-specific: frames jitted per pipeline step) ---
+    # --- batching: fft1 frames per jitted pipeline step ---
     target_fft1_frames_per_step: int = 64
-    # fft1 kernel variant (the fft1_version[] analog, fft1var.c:74-79):
-    # None = auto (mxu/xla by size), "xla", "mxu", or "pallas" (fused
-    # window+DFT+calibration+power kernel, ops/pallas_fft.py)
-    fft1_variant: str | None = None
     shards: int = 1   # time-shards (mesh size); every stage's per-shard
                       # chunk must hold an integer number of frames
 

@@ -133,7 +133,7 @@ class RxState:
 
 @pytree_dataclass
 class RxOutputs:
-    """Per-step observable outputs — the stage-tap taxonomy of the
+    """Per-step observable outputs — the stage-tap set of the
     reference's network layer (RAW/FFT1/TIMF2/FFT2/BASEB,
     globdef.h:237-253) as pipeline outputs."""
 
@@ -254,7 +254,9 @@ def narrowband_post_mix1(geo: Geometry, p: RxParams, tables: RxTables,
         s_pol, combined, w = update_polarization(nb.pol, baseb)
         baseb = combined[:, None]
         if carrier is not None:
-            carrier = (carrier @ jnp.conj(w))[:, None]
+            carrier = jnp.matmul(carrier, jnp.conj(w),
+                                 precision=jax.lax.Precision.HIGHEST
+                                 )[:, None]
     s_bfo, s_am, s_fm, s_coh = nb.bfo, nb.am, nb.fm, nb.coh
     if p.demod == Demod.SSB:
         s_bfo, audio = demod_ops.bfo_ssb(nb.bfo, baseb, p.bfo_hz, fs_bb)
@@ -312,8 +314,7 @@ def _make_wideband_front(geo: Geometry, p: RxParams,
     def front(tables: RxTables, state: RxState, block: jax.Array,
               tune0: jax.Array):
         s_fft1, fft1_spec, step_power = fft1_step(
-            geo, tables.fft1, state.fft1, block, p.fft_avg1num,
-            variant=p.fft1_variant)
+            geo, tables.fft1, state.fft1, block, p.fft_avg1num)
         s_sellim = state.sellim
         s_timf2 = state.timf2
         s_fft2 = state.fft2
@@ -447,7 +448,7 @@ def make_multi_rx_step(geo: Geometry, p: RxParams,
     (globdef.h:315) and fans narrowband "userx" consumers out over the
     network (NET_RX_STRUCT.userx_no/userx_freq globdef.h:1282-1294);
     here the sub-receivers are a vmapped batch axis over the narrowband
-    tail — the TPU-native form: the tail's small FFTs and filters batch
+    tail — the batched form: the tail's small FFTs and filters batch
     into single fat kernels across sub-channels.
 
     Returns ``step(tables, state, nbs, block, tune_bins) ->

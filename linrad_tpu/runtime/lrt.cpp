@@ -8,7 +8,7 @@
 //    conversion the reference does in SIMD assembly, simdasm.s:35-43)
 //  - a single-producer / single-consumer ring buffer with condvar
 //    blocking (the circular-buffer discipline of z_BUFFERS.txt) used by
-//    the file prefetcher so disk I/O overlaps TPU compute
+//    the file prefetcher so disk I/O overlaps device compute
 //
 // Built with: g++ -O3 -shared -fPIC (see runtime/__init__.py); exposed
 // through ctypes; every entry point has a numpy fallback.

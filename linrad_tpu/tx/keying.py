@@ -1,6 +1,6 @@
 """CW keying and pulse-train generation.
 
-TPU-native ``do_cw_keying`` (reference tx.c:658): hand/tone/ASCII keying
+JAX ``do_cw_keying`` (reference tx.c:658): hand/tone/ASCII keying
 with rise-time-shaped pulses, plus the radar pulse trains of the EME
 radar mode (radar.c) and the TX pilot tone."""
 

@@ -1,6 +1,6 @@
 """SSB speech processor.
 
-TPU-native re-design of the reference speech processor (txssb.c, 2390
+JAX re-design of the reference speech processor (txssb.c, 2390
 LoC; parameters SSBPROC_PARM globdef.h:392-409; method notes
 z_SPEACH_PROCESSOR.txt): mic AGC, bass/treble shaping, optional
 frequency shift, clipping/ALC, and filtering — all as frequency-domain

@@ -1,6 +1,6 @@
 """Streamed transmit path: file -> DAC streaming with delay accounting.
 
-TPU-native re-design of the reference's streaming transmit side:
+JAX re-design of the reference's streaming transmit side:
 
 * ``disk2tx`` (tx.c:211-495): stream a .wav file through a power-of-two
   output ring in fixed DAC blocks, looping at EOF — the reference

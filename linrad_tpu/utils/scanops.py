@@ -3,9 +3,9 @@
 Linrad implements AGC tracking, noise-floor averaging, DC removal and
 squelch as per-sample IIR loops inside its per-thread C code (AGC
 mix2.c:1517-1620, noise floor buf.c:336-346, AM DC mix2.c:1804-1834).
-A sequential loop is poison on TPU; every one of those recurrences is an
+A sequential loop is poison on an accelerator; every one of those recurrences is an
 associative operation, so they run as ``jax.lax.associative_scan`` in
-O(log n) depth with full VPU utilisation:
+O(log n) depth, data-parallel:
 
 - one-pole lowpass  y[t] = a*y[t-1] + b*x[t]   — affine composition
 - decaying max      y[t] = max(a*y[t-1], x[t]) — max-plus (log domain)

@@ -1,7 +1,7 @@
 """Segmented reductions along the frequency axis.
 
 The reference's sellim walks strong-signal regions bin by bin with
-pointer loops (sellim.c:790-860).  On TPU, contiguous regions are
+pointer loops (sellim.c:790-860).  Here, contiguous regions are
 segments of a boolean mask and per-region reductions are segmented
 associative scans — O(log n) depth, no sequential walk.
 """

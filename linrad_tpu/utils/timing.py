@@ -2,7 +2,7 @@
 
 The reference accounts per-thread CPU time at ~1 Hz (thread_workload[],
 menu.c:914-957; lir_get_thread_time lxsys.c:383; T-display timing.c:361,
-z_TIMING.txt).  The TPU equivalent measures jitted-step wall time with
+z_TIMING.txt).  The equivalent here measures jitted-step wall time with
 ``block_until_ready`` probes and reports samples/s and realtime factor —
 the numbers that replace the on-screen workload percentages."""
 

@@ -1,6 +1,6 @@
 """AFC — automatic frequency control for drifting weak carriers.
 
-TPU-native re-design of the reference AFC (``make_afc`` afc_graph.c:362,
+JAX re-design of the reference AFC (``make_afc`` afc_graph.c:362,
 ``collect_initial_spectrum`` afcsub.c:34, ``make_afc_signoi``
 afcsub.c:693, ``afc_eval_line``).  The per-signal state machine keeps
 the reference's status codes (afc_graph.c:374-378):

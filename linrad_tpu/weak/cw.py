@@ -1,6 +1,6 @@
 """Coherent CW processing and Morse decoding.
 
-TPU-native re-design of the reference's coherent-CW + Morse stack
+JAX re-design of the reference's coherent-CW + Morse stack
 (``coherent_cw_detect`` coherent.c:283, ``evaluate_keying_spectrum``
 coherent.c:77, ``detect_cw_speed`` cwspeed.c:577, symbol segmentation
 and decode cwdetect.c:126-160 / morse.c:77-125; method notes
@@ -8,7 +8,7 @@ z_MORSE_DECODING.txt).
 
 The envelope/keying analysis runs on numpy at audio rate (host control
 path — the decode operates on seconds of audio at a few kHz, far from
-the TPU hot loop, exactly like the reference runs it in the narrowband
+the device hot loop, exactly like the reference runs it in the narrowband
 idle path).  Stages:
 
 1. Envelope smoothing at ~8x the keying rate.

@@ -1,6 +1,6 @@
 """EME (moonbounce) support: lunar ephemeris, locators, doppler.
 
-TPU-native re-design of the reference EME module (``calculate_moon_data``
+JAX re-design of the reference EME module (``calculate_moon_data``
 eme.c:1588, ``locator_to_latlong`` eme.c:76, ``dist_az``, DXDATA
 structures globdef.h:849-855).  Implemented from standard truncated
 lunar-theory series (Meeus-style main terms; the reference uses an

@@ -1,6 +1,6 @@
 """Adaptive dual-channel polarization.
 
-TPU-native re-design of the reference polarization layer (pol_graph.c,
+JAX re-design of the reference polarization layer (pol_graph.c,
 1391 LoC; channel combination applied in the mix1/mix2 paths, XG_*
 controls globdef.h:706-730): from a 2-channel (X/Y antenna) baseband,
 estimate the signal's polarization state from the 2x2 coherency matrix
@@ -19,6 +19,9 @@ import jax.numpy as jnp
 import numpy as np
 
 from ..utils.pytree import pytree_dataclass
+
+# the 2x2 contractions are tiny and memory-bound: full float32, no TF32
+HIGHEST = jax.lax.Precision.HIGHEST
 
 
 @pytree_dataclass
@@ -52,7 +55,8 @@ def update_polarization(state: PolState, baseb2: jax.Array,
     The dominant eigenvector of the smoothed coherency matrix is the
     matched polarization; projecting onto it is the reference's adaptive
     channel combination."""
-    r = jnp.einsum("si,sj->ij", baseb2, jnp.conj(baseb2)) / baseb2.shape[0]
+    r = jnp.einsum("si,sj->ij", baseb2, jnp.conj(baseb2),
+                   precision=HIGHEST) / baseb2.shape[0]
     coh = (1.0 - alpha) * state.coherency + alpha * r
     # closed-form dominant eigenvector of a 2x2 Hermitian matrix
     a = jnp.real(coh[0, 0])
@@ -68,7 +72,7 @@ def update_polarization(state: PolState, baseb2: jax.Array,
                        jnp.array([0.0 + 0.0j, 1.0 + 0.0j]))
     v = jnp.where(jnp.abs(b) > 1e-12 * jnp.maximum(a, d), v_gen, v_axis)
     v = v / jnp.maximum(jnp.linalg.norm(v), 1e-20)
-    combined = baseb2 @ jnp.conj(v)
+    combined = jnp.matmul(baseb2, jnp.conj(v), precision=HIGHEST)
     return PolState(coherency=coh), combined, v
 
 

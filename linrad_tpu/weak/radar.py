@@ -1,6 +1,6 @@
 """Synchronized EME radar mode.
 
-TPU-native re-design of ``run_radar`` (reference radar.c:121-520) and its
+JAX re-design of ``run_radar`` (reference radar.c:121-520) and its
 display accumulation ``update_radar_average`` (radar.c:86-118) /
 ``make_radar_timeconstant`` (radar.c:61-84).
 
@@ -9,7 +9,7 @@ The reference runs a dedicated thread that walks the shared
 while-loops (peak search, skirt walks, pulse grouping).  Here the
 per-transform analysis — peak bin, bounded two-neighbour skirt walk,
 out-of-skirt noise floor, S/N — is one batched jitted function over all
-frames of a step (VPU-friendly, no ring pointers), and only the tiny
+frames of a step (data-parallel, no ring pointers), and only the tiny
 pulse-train bookkeeping (threshold grouping, median separation, lock
 state machine, radar.c:227-345) runs on host scalars, mirroring the
 reference's control thread.  The display accumulation is a jitted

@@ -1,6 +1,6 @@
 """Spur cancellation — coherent subtraction of stable narrow carriers.
 
-TPU-native re-design of the reference spur canceller
+JAX re-design of the reference spur canceller
 (``eliminate_spurs`` spur.c:36, ``init_spur_elimination`` spursub.c:177,
 ``spur_removal`` wcw.c:204-248).  The reference models each spur over
 SPUR_SIZE=8 consecutive transforms with amplitude/phase/slope/curvature

@@ -1,4 +1,4 @@
-"""fft1 stage tests: parity vs scipy STFT and variant equivalence."""
+"""fft1 stage tests: parity vs numpy and scipy STFT."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -6,7 +6,6 @@ import pytest
 from scipy import signal as sps
 
 from linrad_tpu import RxParams, derive_geometry
-from linrad_tpu.ops import fft as fftlib
 from linrad_tpu.ops.fft1 import FFT1State, FFT1Tables, fft1_step
 from linrad_tpu.ops.windows import make_window
 from linrad_tpu.io.siggen import Tone, tones_iq
@@ -17,58 +16,46 @@ def _geo(**kw):
     return derive_geometry(RxParams(**kw))
 
 
-class TestFFTVariants:
-    def test_mxu_matches_xla(self):
-        rng = np.random.default_rng(0)
-        x = (rng.normal(size=(8, 256)) + 1j * rng.normal(size=(8, 256))
-             ).astype(np.complex64)
-        a = np.asarray(fftlib.fft(jnp.asarray(x), variant="xla"))
-        b = np.asarray(fftlib.fft(jnp.asarray(x), variant="mxu"))
-        np.testing.assert_allclose(a, b, rtol=2e-3, atol=2e-2)
+class TestFFT1Path:
+    """window -> FFT -> calibration -> power -> sumsq average against
+    numpy, at the widths the earlier fused fft1 kernel was tested at."""
 
-    @pytest.mark.parametrize("n", [4096, 16384])
-    def test_four_step_large_n(self, n):
-        """mxu variant above MXU_FFT_MAX_SIZE uses the Bailey four-step
-        decomposition (two batched matmul DFT stages + twiddle)."""
-        rng = np.random.default_rng(5)
-        x = (rng.normal(size=(2, n)) + 1j * rng.normal(size=(2, n))
+    @pytest.mark.parametrize("b,n,c", [(16, 256, 1), (40, 512, 2),
+                                       (128, 1024, 1), (3, 128, 1)])
+    def test_matches_numpy(self, b, n, c):
+        geo = derive_geometry(RxParams(
+            fft1_n_override=int(np.log2(n)), rx_rf_channels=c,
+            target_fft1_frames_per_step=b))
+        assert geo.fft1_size == n and geo.channels == c
+        nfr = geo.fft1_frames_per_step
+        rng = np.random.default_rng(7)
+        fc = ((rng.normal(size=(n, c)) + 1j * rng.normal(size=(n, c)))
+              * 0.1).astype(np.complex64)
+        tables = FFT1Tables.create(geo, filtercorr=fc)
+        state = FFT1State.create(geo)
+        x = (rng.normal(size=(geo.samples_per_step, c))
+             + 1j * rng.normal(size=(geo.samples_per_step, c))
              ).astype(np.complex64)
-        y = np.asarray(fftlib.fft(jnp.asarray(x), variant="mxu"))
-        ref = np.fft.fft(x, axis=-1)
+        new, spec, power = fft1_step(geo, tables, state, jnp.asarray(x),
+                                     avg1num=8)
+        pad = np.concatenate([np.zeros((geo.fft1_interleave_points, c),
+                                       np.complex64), x])
+        hop = geo.fft1_new_points
+        frames = np.stack([pad[i * hop:i * hop + n] for i in range(nfr)])
+        win = make_window(n, geo.fft1_sinpow)
+        ref = np.fft.fft(frames * win[None, :, None], axis=1) * fc[None]
+        ref_pow = np.mean(np.abs(ref) ** 2, axis=0)
         scale = np.max(np.abs(ref))
-        np.testing.assert_allclose(y / scale, ref / scale, atol=2e-5)
-        z = np.asarray(fftlib.ifft(jnp.asarray(y), variant="mxu"))
-        np.testing.assert_allclose(z, x, rtol=2e-4, atol=2e-4)
-
-    def test_mxu_rejects_non_power_of_two(self):
-        with pytest.raises(ValueError):
-            fftlib.fft(jnp.zeros((2, 96), jnp.complex64), variant="mxu")
-
-    def test_mxu_bf16_error_bound(self):
-        """The bfloat16 MXU variant (the reference's int16-MMX-path
-        tradeoff reborn, split.s) stays within ~3e-3 relative transform
-        error at N=2048 (measured 2.2e-3) and round-trips within 2e-2;
-        never selected by default."""
-        rng = np.random.default_rng(2)
-        x = (rng.normal(size=(16, 2048)) + 1j * rng.normal(size=(16, 2048))
-             ).astype(np.complex64)
-        ref = np.fft.fft(x, axis=-1)
-        y = np.asarray(fftlib.fft(jnp.asarray(x), variant="mxu_bf16"))
-        assert np.max(np.abs(y - ref)) / np.max(np.abs(ref)) < 3.5e-3
-        z = np.asarray(fftlib.ifft(jnp.asarray(y), variant="mxu_bf16"))
-        assert np.max(np.abs(z - x)) < 2.5e-2
-        # default selection must NOT be bf16
-        d = np.asarray(fftlib.fft(jnp.asarray(x)))
-        assert np.max(np.abs(d - ref)) / np.max(np.abs(ref)) < 1e-5
-
-    def test_ifft_roundtrip(self):
-        rng = np.random.default_rng(1)
-        x = (rng.normal(size=(4, 128)) + 1j * rng.normal(size=(4, 128))
-             ).astype(np.complex64)
-        for v in ("xla", "mxu"):
-            y = fftlib.ifft(fftlib.fft(jnp.asarray(x), variant=v), variant=v)
-            np.testing.assert_allclose(np.asarray(y), x, rtol=1e-3,
-                                       atol=1e-4)
+        np.testing.assert_allclose(np.asarray(spec) / scale, ref / scale,
+                                   atol=2e-5)
+        np.testing.assert_allclose(np.asarray(power), ref_pow, rtol=1e-4,
+                                   atol=1e-6 * ref_pow.max())
+        alpha = min(1.0, nfr / 8)
+        np.testing.assert_allclose(np.asarray(new.sumsq_avg),
+                                   1e-20 * (1 - alpha) + alpha * ref_pow,
+                                   rtol=1e-4, atol=1e-6 * ref_pow.max())
+        np.testing.assert_array_equal(
+            np.asarray(new.tail), pad[-geo.fft1_interleave_points:])
 
 
 class TestFFT1:

@@ -1,6 +1,6 @@
 """Synchronized radar mode: TX/RX round trip on a synthetic echo.
 
-Validates the TPU-native run_radar (linrad_tpu/weak/radar.py vs
+Validates the JAX run_radar (linrad_tpu/weak/radar.py vs
 reference radar.c:121-520): the tracker must identify the transmitted
 pulse train from the fft1 power stream alone (separation, frequency
 bin), then accumulate a range display in which the synthetic echo

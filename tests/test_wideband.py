@@ -84,6 +84,36 @@ class TestSellim:
         st = sellim_ops.update_liminfo(geo, st, jnp.asarray(p), 8.0)
         assert np.asarray(st.liminfo)[50] == -1.0
 
+    @pytest.mark.parametrize("shape,k", [((32, 16), 3), ((4, 32, 16), 3),
+                                         ((7, 5), 5)])
+    def test_smallest_k_matches_top_k(self, shape, k):
+        """The noise floor's k smallest per group equal top_k's values,
+        ties included, also under vmap (the fleet path)."""
+        import jax
+        rng = np.random.default_rng(k)
+        x = np.round(rng.normal(size=shape), 1).astype(np.float32)  # ties
+        ref = np.asarray(-jax.lax.top_k(-jnp.asarray(x), k)[0])
+        got = sellim_ops.smallest_k(jnp.asarray(x), k)
+        np.testing.assert_array_equal(np.asarray(got), ref)
+        batched = jax.vmap(lambda y: sellim_ops.smallest_k(y, k))(
+            jnp.asarray(x))
+        np.testing.assert_array_equal(np.asarray(batched), ref)
+
+    def test_update_liminfo_vmapped_equals_single(self):
+        import jax
+        geo = _geo()
+        rng = np.random.default_rng(8)
+        ps = (1.0 + rng.exponential(size=(3, geo.fft1_size))
+              ).astype(np.float32)
+        ps[:, 100] *= 1e6
+        st = sellim_ops.SellimState.create(geo)
+        upd = lambda p: sellim_ops.update_liminfo(geo, st, p, 8.0)  # noqa
+        batched = jax.vmap(upd)(jnp.asarray(ps)).liminfo
+        for i in range(3):
+            np.testing.assert_array_equal(
+                np.asarray(batched[i]),
+                np.asarray(upd(jnp.asarray(ps[i])).liminfo))
+
 
 class TestTimf2:
     def test_weak_strong_reconstruction(self):
